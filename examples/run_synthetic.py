@@ -1,6 +1,9 @@
 """Run the full SLAM pipeline on a synthetic sequence and report errors.
 
-Usage: python examples/run_synthetic.py [n_frames] [--no-ba] [--tpu]
+Usage: python examples/run_synthetic.py [n_frames] [--no-ba] [--cpu]
+
+Runs on JAX's default backend (the GPU where there is one); --cpu forces
+the CPU.
 """
 
 import os
@@ -11,15 +14,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-if "--tpu" not in sys.argv:
+if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
-from stereo_visual_slam_tpu.pipeline.vo import VisualOdometry
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.pipeline import trajectory as traj_mod
+from stereo_visual_slam.pipeline.vo import VisualOdometry
+from stereo_visual_slam.utils.config import Config
 
 
 def main():
@@ -32,7 +35,7 @@ def main():
     cfg = Config()
     print(f"building world ({n_frames} frames)...")
     world = synthetic.make_world(cfg, n_frames=n_frames, n_points=8000, seed=0)
-    vo = VisualOdometry(cfg, pose_path="/tmp/synthetic_traj.txt", enable_ba=enable_ba)
+    vo = VisualOdometry(cfg, pose_path="synthetic_traj.txt", enable_ba=enable_ba)
 
     t_start = time.perf_counter()
     for f, left, right in synthetic.frames(world):

@@ -1,10 +1,10 @@
 // mapstore — native arena-backed sliding-window keyframe/landmark map.
 //
 // The reference keeps its map in native C++ hash tables
-// (Map, map.hpp:15-81; insert/evict/GC at map.cpp:13-152). The TPU build's
-// production host runtime keeps the same data natively too: this is the
+// (Map, map.hpp:15-81; insert/evict/GC at map.cpp:13-152). This build's
+// host runtime keeps the same data natively too: this is the
 // C++ twin of the Python reference implementation / test oracle in
-// stereo_visual_slam_tpu/mapping/store.py — the same arena layout
+// stereo_visual_slam/mapping/store.py — the same arena layout
 // (parallel arrays + free list + dense id->row table), the same distance
 // eviction rule (closest-if-<min_dist-else-farthest, map.cpp:48-130), the
 // same observation-count GC (clean_map, map.cpp:132-152), and the same

@@ -1,15 +1,15 @@
-// slamio — native host runtime for the TPU stereo-visual-SLAM framework.
+// slamio — native host runtime for the stereo-visual-SLAM framework.
 //
 // The reference system's entire runtime is native C++ (a ROS node:
 // run_vslam.cpp driving OpenCV imread at visual_odometry.cpp:37-68 and a
-// trajectory writer at map.cpp:168-204). The TPU build keeps the compute
-// path in JAX/XLA/Pallas; this library is the native equivalent of the
+// trajectory writer at map.cpp:168-204). This build keeps the compute
+// path in JAX/XLA; this library is the native equivalent of the
 // reference's host-side runtime:
 //
 //   * grayscale image decode (PNG via libpng, PGM natively) — replaces
 //     cv::imread(..., IMREAD_GRAYSCALE) of visual_odometry.cpp:50-51;
 //   * a multithreaded prefetching stereo-frame loader with a bounded ring
-//     buffer — the async IO executor that keeps the TPU fed (the reference
+//     buffer — the async IO executor that keeps the device fed (the reference
 //     reads synchronously inside the hot loop; we overlap decode with
 //     device compute);
 //   * a KITTI-format trajectory writer emitting the exact row layout of

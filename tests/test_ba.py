@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stereo_visual_slam_tpu.ba import pose_only, schur_lm
-from stereo_visual_slam_tpu.geom import se3
+from stereo_visual_slam.ba import pose_only, schur_lm
+from stereo_visual_slam.geom import se3
 
 FX, FY, CX, CY = 718.856, 718.856, 607.1928, 185.2157
 K = jnp.asarray([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], jnp.float32)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
-from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.pipeline import trajectory as traj_mod
+from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+from stereo_visual_slam.utils.config import Config
 
 
 @pytest.fixture(scope="module")
@@ -114,9 +114,9 @@ def test_packed_chunk_step_equals_unpacked():
     import jax
     import jax.numpy as jnp
 
-    from stereo_visual_slam_tpu.data import synthetic
-    from stereo_visual_slam_tpu.models import slam_core
-    from stereo_visual_slam_tpu.utils.config import small_config
+    from stereo_visual_slam.data import synthetic
+    from stereo_visual_slam.models import slam_core
+    from stereo_visual_slam.utils.config import small_config
 
     cfg = small_config()
     H, W = cfg.padded_hw
@@ -148,9 +148,9 @@ def test_staged_run_matches_streaming():
     """ChunkedSlam.run(stage=True) — chunk buffers pre-uploaded, the
     offline/dataset mode — produces bit-identical estimates and stats to
     the live-streaming driver (uploads through the thread pool)."""
-    from stereo_visual_slam_tpu.data import synthetic
-    from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-    from stereo_visual_slam_tpu.utils.config import small_config
+    from stereo_visual_slam.data import synthetic
+    from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+    from stereo_visual_slam.utils.config import small_config
 
     cfg = small_config()
     world = synthetic.make_world(cfg, n_frames=14, n_points=1500, seed=0)

@@ -10,9 +10,9 @@ program (active-mask padding, no recompile).
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+from stereo_visual_slam.utils.config import Config
 
 N_FRAMES = 13  # deliberately NOT a multiple of the chunk size
 

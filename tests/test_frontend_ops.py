@@ -2,12 +2,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.ops import anms as anms_ops
-from stereo_visual_slam_tpu.ops import fast as fast_ops
-from stereo_visual_slam_tpu.ops import image as im_ops
-from stereo_visual_slam_tpu.ops import matcher as match_ops
-from stereo_visual_slam_tpu.ops import orb as orb_ops
-from stereo_visual_slam_tpu.ops import stereo as stereo_ops
+from stereo_visual_slam.ops import anms as anms_ops
+from stereo_visual_slam.ops import fast as fast_ops
+from stereo_visual_slam.ops import image as im_ops
+from stereo_visual_slam.ops import matcher as match_ops
+from stereo_visual_slam.ops import orb as orb_ops
+from stereo_visual_slam.ops import stereo as stereo_ops
 
 
 def blob_image(h=96, w=128, centers=((30, 40), (60, 90), (48, 64)), seed=0):
@@ -22,14 +22,14 @@ def blob_image(h=96, w=128, centers=((30, 40), (60, 90), (48, 64)), seed=0):
 # ---------------- FAST ----------------
 
 def test_pruned_topk_matches_full():
-    """nms_topk's histogram-pruned path == plain lax.top_k over the pooled
-    map: same scores, same index tie-breaking — on sparse maps (the real
-    regime), tie-heavy maps, near-empty maps (fewer than k positives), and
-    a dense map that must take the overflow fallback."""
+    """nms_topk == a NumPy stable sort over the 2x2-pooled map:
+    same scores, same index tie-breaking — on sparse maps (the real regime),
+    tie-heavy maps, near-empty maps (fewer than k positives), and a dense
+    map."""
     import jax
 
     rng = np.random.default_rng(7)
-    H, W = 128, 512          # pooled M = 16384 > capacity -> pruned path
+    H, W = 128, 512          # pooled map: 16384 cells
     k = 200
 
     def reference(score):
@@ -69,8 +69,7 @@ def test_pruned_topk_matches_full():
             np.asarray(yx)[live], ref_yx[live], err_msg=name
         )
 
-    # dense map: every pooled cell nonzero -> candidate overflow -> the
-    # lax.cond fallback must reproduce full top_k exactly
+    # dense map: every pooled cell nonzero -> same as full top_k
     dense = rng.uniform(1, 10, (H, W)).astype(np.float32)
     ts, yx = fast_ops.nms_topk(jnp.asarray(dense), k)
     ts_full, idx_full = jax.lax.top_k(

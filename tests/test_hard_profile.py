@@ -3,16 +3,16 @@ independently moving occluders, a low-texture stretch, perspective sprite
 scaling, and a sharp ~80-degree turn (data/synthetic.py make_world
 profile="hard"). The tracker must survive all of it — the CI-scale analog
 of the reference's KITTI seq 00 robustness claim (README.md:97 "without
-lost"); bench.py runs the full-length version on TPU.
+lost"); bench.py runs the full-length version on the GPU.
 """
 
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
-from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.pipeline import trajectory as traj_mod
+from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+from stereo_visual_slam.utils.config import Config
 
 pytestmark = pytest.mark.slow
 

@@ -4,15 +4,15 @@ reference's robustness claim (/root/reference/README.md:97: seq 01
 ~2.5-2.8 m/frame at 10 Hz), sparse roadside structure, perspective sprite
 scaling, mild sensor noise. Stresses large-baseline matching, per-frame
 disparity change, and the keyframe rule under fast forward motion.
-bench.py runs the >=200-frame version on TPU with the same gate."""
+bench.py runs the >=200-frame version on the GPU with the same gate."""
 
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
-from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.pipeline import trajectory as traj_mod
+from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+from stereo_visual_slam.utils.config import Config
 
 pytestmark = pytest.mark.slow
 

@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.utils.config import Config
-from stereo_visual_slam_tpu.utils import config_io
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.utils.config import Config
+from stereo_visual_slam.utils import config_io
 
 
 # ---------------- config YAML ----------------
@@ -72,7 +72,7 @@ def mini_kitti(tmp_path_factory):
 
 
 def test_kitti_reader(mini_kitti):
-    from stereo_visual_slam_tpu.data import kitti
+    from stereo_visual_slam.data import kitti
 
     root, world = mini_kitti
     seq = kitti.open_sequence(root, "07")
@@ -92,7 +92,7 @@ def test_kitti_reader(mini_kitti):
 
 
 def test_cli_driver_on_kitti(mini_kitti, tmp_path, monkeypatch):
-    from stereo_visual_slam_tpu import run_vslam
+    from stereo_visual_slam import run_vslam
 
     # shallow fetch trail so per-frame records (and thus viz ticks) arrive
     # while the 4-frame run is still going (default trails 3 chunks)
@@ -147,7 +147,7 @@ def test_cli_driver_on_kitti(mini_kitti, tmp_path, monkeypatch):
         ]
     )
     assert rc == 0
-    from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
+    from stereo_visual_slam.pipeline import trajectory as traj_mod
 
     rows_a = traj_mod.read_trajectory(pose_out)
     rows_b = traj_mod.read_trajectory(pose_roll)
@@ -159,8 +159,8 @@ def test_cli_driver_on_kitti(mini_kitti, tmp_path, monkeypatch):
 # ---------------- snapshot / resume ----------------
 
 def test_snapshot_resume(tmp_path):
-    from stereo_visual_slam_tpu.pipeline.snapshot import load_snapshot, save_snapshot
-    from stereo_visual_slam_tpu.pipeline.vo import VisualOdometry
+    from stereo_visual_slam.pipeline.snapshot import load_snapshot, save_snapshot
+    from stereo_visual_slam.pipeline.vo import VisualOdometry
 
     cfg = Config()
     world = synthetic.make_world(cfg, n_frames=10, n_points=6000, seed=1)

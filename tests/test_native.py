@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.utils import native
+from stereo_visual_slam.utils import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native slamio library not available"
@@ -104,7 +104,7 @@ def test_prefetcher_early_close(tmp_path):
 
 
 def test_kitti_sequence_uses_native(tmp_path):
-    from stereo_visual_slam_tpu.data import kitti
+    from stereo_visual_slam.data import kitti
 
     n = 5
     _make_sequence(tmp_path, n)
@@ -117,7 +117,7 @@ def test_kitti_sequence_uses_native(tmp_path):
 
 
 def test_traj_writer_matches_python(tmp_path):
-    from stereo_visual_slam_tpu.pipeline import trajectory
+    from stereo_visual_slam.pipeline import trajectory
 
     rng = np.random.default_rng(3)
     poses = []
@@ -168,7 +168,7 @@ def test_traj_writer_append(tmp_path):
 
 
 def _small_cfg():
-    from stereo_visual_slam_tpu.utils.config import small_config
+    from stereo_visual_slam.utils.config import small_config
 
     return small_config()
 
@@ -176,7 +176,7 @@ def _small_cfg():
 def _random_kf(rng, cfg, kf_id, frame_id, store, next_ids):
     """Build one random Keyframe referencing a mix of existing + new
     landmarks, mirroring what the pipeline does per keyframe."""
-    from stereo_visual_slam_tpu.mapping.store import Keyframe
+    from stereo_visual_slam.mapping.store import Keyframe
 
     N = cfg.frontend.max_raw_keypoints
     n_new = int(rng.integers(5, 40))
@@ -228,7 +228,7 @@ def test_native_mapstore_equivalence(rng):
     """Drive the SAME random op sequence through the Python oracle and the
     native store; arena state, counts, eviction choices, and the assembled
     BA window must agree exactly."""
-    from stereo_visual_slam_tpu.mapping.store import MapStore
+    from stereo_visual_slam.mapping.store import MapStore
 
     cfg = _small_cfg()
     py = MapStore(cfg)
@@ -313,7 +313,7 @@ def test_native_mapstore_equivalence(rng):
 def test_native_mapstore_write_back(rng):
     """BA write-back applies poses to live keyframes and verdicts to live
     rows identically in both stores."""
-    from stereo_visual_slam_tpu.mapping.store import MapStore
+    from stereo_visual_slam.mapping.store import MapStore
 
     cfg = _small_cfg()
     py = MapStore(cfg)

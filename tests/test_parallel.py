@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.ba import schur_lm
-from stereo_visual_slam_tpu.parallel import dist_ba
+from stereo_visual_slam.ba import schur_lm
+from stereo_visual_slam.parallel import dist_ba
 
 from test_ba import K, make_ba_problem, pose_rmse
 
@@ -84,9 +84,9 @@ def test_batch_frontend_sharded(mesh):
     chunk program applies (slam_core._build_chunk_step)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from stereo_visual_slam_tpu.data import synthetic
-    from stereo_visual_slam_tpu.models import frontend as frontend_mod
-    from stereo_visual_slam_tpu.utils.config import Config
+    from stereo_visual_slam.data import synthetic
+    from stereo_visual_slam.models import frontend as frontend_mod
+    from stereo_visual_slam.utils.config import Config
 
     cfg = Config()
     world = synthetic.make_world(cfg, n_frames=8, n_points=4000, seed=1)
@@ -127,8 +127,8 @@ def test_batch_frontend_sharded(mesh):
 
 def test_sharded_schedule_matches_single_device(rng, mesh):
     """ba.schedule.make_ba_schedule(mesh=...) == single-device schedule."""
-    from stereo_visual_slam_tpu.ba import schedule as ba_schedule
-    from stereo_visual_slam_tpu.utils.config import BAConfig
+    from stereo_visual_slam.ba import schedule as ba_schedule
+    from stereo_visual_slam.utils.config import BAConfig
 
     problem, T_gt, pts_gt, _ = make_ba_problem(rng, n_lm=152, px_noise=0.3)
     L = 512
@@ -170,8 +170,8 @@ def test_sharded_schedule_large_window(mesh):
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
     from scaling_bench import make_window
 
-    from stereo_visual_slam_tpu.ba import schedule as ba_schedule
-    from stereo_visual_slam_tpu.utils.config import BAConfig
+    from stereo_visual_slam.ba import schedule as ba_schedule
+    from stereo_visual_slam.utils.config import BAConfig
 
     inp, Kmat = make_window(8192, nK=20, seed=3)
     cfg = BAConfig()
@@ -200,9 +200,9 @@ def test_chunked_window_growth_live(mesh):
     feeding it."""
     import dataclasses
 
-    from stereo_visual_slam_tpu.data import synthetic
-    from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-    from stereo_visual_slam_tpu.utils.config import small_config
+    from stereo_visual_slam.data import synthetic
+    from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+    from stereo_visual_slam.utils.config import small_config
 
     cfg = small_config(h=128, w=256)
     cfg = cfg.replace(
@@ -245,9 +245,9 @@ def test_chunked_core_sharded_matches_single(mesh):
     long enough that the Kw=10 window fills even with a few motion-check
     rejections (12 frames yielded only 9 keyframes and silently skipped BA
     in both configurations — VERDICT r04 weak #1)."""
-    from stereo_visual_slam_tpu.data import synthetic
-    from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-    from stereo_visual_slam_tpu.utils.config import small_config
+    from stereo_visual_slam.data import synthetic
+    from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+    from stereo_visual_slam.utils.config import small_config
 
     cfg = small_config(h=128, w=256)
     world = synthetic.make_world(cfg, n_frames=18, n_points=1500, seed=0)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
-from stereo_visual_slam_tpu.pipeline.vo import VisualOdometry
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.pipeline import trajectory as traj_mod
+from stereo_visual_slam.pipeline.vo import VisualOdometry
+from stereo_visual_slam.utils.config import Config
 
 
 @pytest.fixture(scope="module")

@@ -13,10 +13,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
-from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.pipeline import trajectory as traj_mod
+from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+from stereo_visual_slam.utils.config import Config
 
 N_FRAMES = 14
 GARBAGE = (7, 8, 9)
@@ -53,7 +53,7 @@ def test_pyramid_levels_detect(rendered):
     """Coarse levels contribute real keypoints on the scaled-sprite wall."""
     import jax.numpy as jnp
 
-    from stereo_visual_slam_tpu.models import frontend as fm
+    from stereo_visual_slam.models import frontend as fm
 
     world, frames = rendered
     cfg = Config()

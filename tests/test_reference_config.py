@@ -1,7 +1,7 @@
 """Reference-faithful configuration end-to-end.
 
 The default config deviates from the reference in documented, benchmarked
-ways (TPU-tuned BA iteration maxima, matcher gate 45, motion-gated search,
+ways (trimmed BA iteration maxima, matcher gate 45, motion-gated search,
 gauge anchoring, upright BRIEF). This test pins the OTHER direction: a
 configuration dialed back to the reference's published constants —
 2x5/10/10 BA schedule (run_vslam.cpp:61-70), base gate 30
@@ -15,10 +15,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
-from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-from stereo_visual_slam_tpu.utils.config import Config, reference_ba_schedule
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.pipeline import trajectory as traj_mod
+from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+from stereo_visual_slam.utils.config import Config, reference_ba_schedule
 
 N = 14
 

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.geom import se3
+from stereo_visual_slam.geom import se3
 
 
 def random_twists(rng, n=64, scale=1.0):

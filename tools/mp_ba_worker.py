@@ -6,7 +6,7 @@ mesh spans 8 devices across both processes. The landmark-sharded BA
 schedule (ba/schedule.py shard_map path) runs over that global mesh — each
 process's devices reduce their local landmarks' Schur contributions and the
 reduced camera system psum rides the (here: gRPC-backed) collective fabric,
-exactly the layout that spans ICI/DCN on a real pod (SURVEY.md §7 step 7).
+the same layout that spans NCCL across GPU hosts (SURVEY.md §7 step 7).
 
 The result is cross-checked against the single-device schedule computed
 locally; success prints MP_OK.
@@ -32,7 +32,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
 
 def make_window(cfg, L):
     """Deterministic synthetic BA window (identical on every process)."""
-    from stereo_visual_slam_tpu.ba import schedule as ba_schedule
+    from stereo_visual_slam.ba import schedule as ba_schedule
 
     rng = np.random.default_rng(0)
     cam = cfg.camera
@@ -76,7 +76,7 @@ def make_window(cfg, L):
 def main():
     coord, pid, nproc = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 
-    from stereo_visual_slam_tpu.utils.dist import initialize_distributed
+    from stereo_visual_slam.utils.dist import initialize_distributed
 
     initialize_distributed(
         coordinator_address=coord, num_processes=nproc, process_id=pid
@@ -85,8 +85,8 @@ def main():
     devs = jax.devices()
     assert len(devs) == 4 * nproc, len(devs)
 
-    from stereo_visual_slam_tpu.ba import schedule as ba_schedule
-    from stereo_visual_slam_tpu.utils.config import Config
+    from stereo_visual_slam.ba import schedule as ba_schedule
+    from stereo_visual_slam.utils.config import Config
 
     cfg = Config()
     L = 1024

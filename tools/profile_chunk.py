@@ -10,11 +10,11 @@ import time
 import jax
 import numpy as np
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.models import slam_core
-from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam
-from stereo_visual_slam_tpu.utils.cache import enable_compilation_cache
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.data import synthetic
+from stereo_visual_slam.models import slam_core
+from stereo_visual_slam.pipeline.chunked import ChunkedSlam
+from stereo_visual_slam.utils.cache import enable_compilation_cache
+from stereo_visual_slam.utils.config import Config
 
 
 def main():

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stereo_visual_slam_tpu.ba import schur_lm
-from stereo_visual_slam_tpu.utils.cache import enable_compilation_cache
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.ba import schur_lm
+from stereo_visual_slam.utils.cache import enable_compilation_cache
+from stereo_visual_slam.utils.config import Config
 
 R = 30
 

@@ -1,9 +1,10 @@
 """Per-phase FLOP / HBM-byte / MFU table of the production programs.
 
 FLOPs and bytes come from XLA's post-optimization cost model on the
-compiled executables (utils/roofline.py); measured times are the two-length
-fori numbers from tools/profile_production.py (pass them on the command
-line, or rely on the defaults recorded in docs/PERF.md).
+compiled executables (utils/roofline.py); the device times are measured on
+the same GPU and passed on the command line:
+
+    python tools/roofline_report.py <chunk_ms> <extract_ms> <scan_ms> <ba_ms>
 
 Caveat: the cost model counts while/cond BODIES ONCE — the feats scan is
 reported per frame (its body is one frame), and the BA schedule's LM
@@ -16,12 +17,12 @@ import sys
 import jax
 import jax.numpy as jnp
 
-from stereo_visual_slam_tpu.ba import schedule as ba_schedule
-from stereo_visual_slam_tpu.models import frontend as frontend_mod
-from stereo_visual_slam_tpu.models import slam_core
-from stereo_visual_slam_tpu.utils import roofline
-from stereo_visual_slam_tpu.utils.cache import enable_compilation_cache
-from stereo_visual_slam_tpu.utils.config import Config
+from stereo_visual_slam.ba import schedule as ba_schedule
+from stereo_visual_slam.models import frontend as frontend_mod
+from stereo_visual_slam.models import slam_core
+from stereo_visual_slam.utils import roofline
+from stereo_visual_slam.utils.cache import enable_compilation_cache
+from stereo_visual_slam.utils.config import Config
 
 B = 8
 
@@ -50,12 +51,9 @@ def main():
         reliable=S((L,), f32), present=S((L,), f32), pose_mask=S((Kw,), f32),
         fixed_pose=S((Kw,), f32))
 
-    # measured device times (ms) — tools/profile_production.py fori method;
-    # override: roofline_report.py <chunk_ms> <extract_ms> <scan_ms> <ba_ms>
-    t_chunk = float(sys.argv[1]) if len(sys.argv) > 1 else 57.0
-    t_ext = float(sys.argv[2]) if len(sys.argv) > 2 else 48.5
-    t_scan = float(sys.argv[3]) if len(sys.argv) > 3 else 8.1
-    t_ba = float(sys.argv[4]) if len(sys.argv) > 4 else 12.0
+    if len(sys.argv) != 5:
+        raise SystemExit(__doc__)
+    t_chunk, t_ext, t_scan, t_ba = (float(a) for a in sys.argv[1:])
 
     rows = [
         ("chunk_step (B=8, no-BA)", roofline.cost_of(
@@ -69,8 +67,9 @@ def main():
         ("BA schedule (1 keyframe, lower bound)", roofline.cost_of(
             schedule, inp_sds, S((3, 3), f32)), t_ba),
     ]
+    power_w = roofline.power_limit_w()
     for label, cost, ms in rows:
-        print(roofline.summarize(label, cost, ms * 1e-3), flush=True)
+        print(roofline.summarize(label, cost, ms * 1e-3, power_w), flush=True)
 
 
 if __name__ == "__main__":

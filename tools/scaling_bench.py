@@ -1,6 +1,6 @@
 """Distributed-BA scaling: the full BA schedule landmark-sharded over
 1/2/4/8 devices (virtual CPU mesh here; the same shard_map path runs over
-ICI on a real TPU slice).
+NCCL on GPUs).
 
 Communication per LM iteration is one psum of the reduced (6K x 6K + 6K)
 camera system (~15 KB at K=10) regardless of map size, so the per-landmark
@@ -30,9 +30,9 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from stereo_visual_slam_tpu.ba import schedule as ba_schedule  # noqa: E402
-from stereo_visual_slam_tpu.geom import se3  # noqa: E402
-from stereo_visual_slam_tpu.utils.config import BAConfig  # noqa: E402
+from stereo_visual_slam.ba import schedule as ba_schedule  # noqa: E402
+from stereo_visual_slam.geom import se3  # noqa: E402
+from stereo_visual_slam.utils.config import BAConfig  # noqa: E402
 
 
 def make_window(L, nK=10, seed=0):
